@@ -1,18 +1,14 @@
 #!/bin/bash
-# Outer-CEM budget ("fast" operating point) certification — VERDICT r3 #2.
+# Outer-CEM budget ("fast" operating point) certification.
 #
 # The outer budget num_batch=100 x maxiter_cem=20 is the reference's tuning
 # constant, not spec (synthetic_static_obs/optimizer/cem.py:88-89,137-140).
-# The latency grid (benchmarks/outer_sweep.py, artifacts/fast/outer_grid.jsonl)
-# on v5e-lite:
-#   100x20: 6.3 solves/s, p99 184 ms       64x14: 16.0 solves/s, p99 85 ms
-#    64x12: 18.5 solves/s, p99  76 ms      64x10: 22.0 solves/s, p99 69 ms
 # This script proves (or refutes) quality-neutrality of the candidate
 # budgets on the two discriminating acceptance cells (beta noise, N=5
 # reduced set) with the same protocol as the realtime-preset cert
 # (../realtime/run_cert.sh): 200-config sweeps per arm + cvar context,
 # scenario-intersection join, 1000-MC paired validation, Wilcoxon +
-# bootstrap CI per pair.  All on real TPU hardware.
+# bootstrap CI per pair.
 set -ex
 cd "$(dirname "$0")/../.."
 

@@ -1,8 +1,7 @@
 #!/bin/bash
-# Second extension: add the B=64 x maxiter_cem=10 outer arm (22.0 solves/s,
-# p99 69 ms in outer_grid.jsonl — the next point down the budget curve) AND
-# the combined inner+outer arm S=64x12 + B=64x10 (37.1 solves/s measured —
-# the fastest point on the grid) to the 600-config certification.  The
+# Second extension: add the B=64 x maxiter_cem=10 outer arm (the next point
+# down the budget curve) AND the combined inner+outer arm S=64x12 + B=64x10
+# (the smallest budget on the grid) to the 600-config certification.  The
 # existing arms resume from their stores; the re-validation joins all
 # seven arms on one paired set.
 set -ex

@@ -1,12 +1,12 @@
 #!/bin/bash
-# Round-5 certification broadening (VERDICT r4 next-round item 1): the
+# Round-5 certification broadening: the
 # promoted combined budget fastrt64x10 (outer B=64 x maxiter_cem=10 +
 # inner S=64 x 12) was certified on exactly two static beta cells; this
 # adds (a) a gaussian static cell (noise 0.1, N=5 — the shape bench.py
 # headlines) and (b) a dynamic-workload cell (beta 0.3, N=5, cut-in
 # scenario), each with the same paired-MC protocol: 600-config sweeps per
 # arm with identical scenario seeds, intersection join, 1000-MC paired
-# validation, Wilcoxon + bootstrap CI per pair.  All on real TPU.
+# validation, Wilcoxon + bootstrap CI per pair.
 set -x
 cd "$(dirname "$0")/../.."
 

@@ -1,5 +1,5 @@
 #!/bin/bash
-# Round-5 serialized TPU job queue (one chip — jobs must not overlap).
+# Round-5 serialized job queue (one device — jobs must not overlap).
 # Logs to artifacts/r5_queue.log.  Each stage tolerates failure of the
 # previous one (no set -e): sweeps resume from their stores on re-run.
 cd "$(dirname "$0")/.."

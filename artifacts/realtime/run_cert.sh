@@ -1,18 +1,13 @@
 #!/bin/bash
-# Realtime operating-point certification (VERDICT r2 item 1).
+# Realtime operating-point certification.
 #
 # The inner-CEM budget S=100x20 iterations is the reference's tuning
-# choice (compute_beta.py:14-15), and is 87% of solve latency.  The
-# latency grid (benchmarks/realtime_sweep.py, committed in the r3 log)
-# shows reduced budgets clear the 0.15 s real-time budget with margin:
-#   100x20: p50/p99 184/235 ms blocking, 159 ms device
-#    64x12: 101/105 ms, 77 ms device
-#    48x8 :  65/ 67 ms, 41 ms device
+# choice (compute_beta.py:14-15) and dominates the mmd_opt solve.
 # This script proves the trade quality-neutral on the two DISCRIMINATING
 # acceptance cells (beta noise, N=5 reduced set — where mmd_opt's
 # advantage over cvar concentrates): 200-config sweeps per budget +
 # cvar, scenario-intersection join, 1000-MC paired validation, Wilcoxon
-# + bootstrap CI per pair.  All on real TPU hardware.
+# + bootstrap CI per pair.
 set -ex
 cd "$(dirname "$0")/../.."
 

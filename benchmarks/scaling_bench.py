@@ -7,7 +7,7 @@ grows N-fold).  This is the BASELINE.md "scaling efficiency at 1 chip /
 1 host / N hosts" measurement; the reference has no multi-device support at
 all (SURVEY.md §2.4), so there is no reference number to compare.
 
-On real TPU pod slices run as-is (devices = real chips; multi-host via
+On a multi-GPU host run as-is (devices = real cards; multi-host via
 ``initialize_distributed`` first).  On a development machine run with
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 which exercises the identical shard_map path, but NOTE: virtual CPU devices

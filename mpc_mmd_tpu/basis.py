@@ -1,6 +1,6 @@
 """Bernstein polynomial basis over an arbitrary time interval.
 
-TPU-native replacement for the reference's hardcoded order-10 closed forms
+Replacement for the reference's hardcoded order-10 closed forms
 (``synthetic_static_obs/bernstein_coeff_order10_arbitinterval.py:13-103``).
 Instead of 33 hand-derived expressions we evaluate the basis for *any* order
 with the standard derivative recurrence

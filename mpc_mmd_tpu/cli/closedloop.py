@@ -111,8 +111,8 @@ def main(argv=None):
                         "lane is geometrically impassable within the band")
     args = p.parse_args(argv)
 
-    # warm-start from the on-disk XLA cache (TPU-only; minutes -> seconds
-    # for every process after the first at a given config)
+    # warm-start from the persistent XLA cache (minutes -> seconds for
+    # every process after the first at a given config)
     from ..utils.compilation_cache import enable_persistent_cache
     enable_persistent_cache()
 

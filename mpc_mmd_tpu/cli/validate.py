@@ -306,7 +306,7 @@ def main(argv=None):
                    help="per-store array labels for --compare (default: "
                         "each store's mode; required when stores share one)")
     args = p.parse_args(argv)
-    # warm-start from the on-disk XLA cache (TPU-only)
+    # warm-start from the persistent XLA cache
     from ..utils.compilation_cache import enable_persistent_cache
     enable_persistent_cache()
     if args.compare:

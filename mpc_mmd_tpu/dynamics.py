@@ -1,12 +1,13 @@
 """Bicycle-kinematics rollouts under stochastic control noise.
 
-TPU-native design notes
------------------------
-* One flat ``lax.scan`` over time drives *all* rollout lanes at once
+Design notes
+------------
+* One flat rollout over time drives *all* rollout lanes at once
   (candidates x noise-samples x scenarios are a single leading batch axis),
   instead of the reference's vmap-of-per-candidate-scan
-  (``synthetic_static_obs/optimizer/cem_helper.py:402-538``).  Each scan step
-  is a handful of fused element-wise VPU ops over a wide vector.
+  (``synthetic_static_obs/optimizer/cem_helper.py:402-538``).  On the GPU it
+  is one Pallas kernel (ops/rollout_triton.py); the plain form is a
+  ``lax.scan`` whose step is a handful of fused element-wise ops.
 * The state is a (B, 5) array [x, y, vx, vy, psi]; positions are accumulated
   into pre-laid-out (T, B) stacks by the scan (transposed once at the end),
   avoiding the reference's per-step ``.at[:, idx].set`` scatter pattern.
@@ -23,6 +24,7 @@ validation.py:21-40 (independent numpy oracle mirrored in tests).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
 import jax
@@ -32,21 +34,25 @@ from jax import lax
 from .config import NoiseConfig
 
 
+def bicycle_step(x, y, vx, vy, psi, acc, steer, dt: float,
+                 wheel_base: float):
+    """One Euler step of bicycle kinematics on per-lane arrays; returns
+    (x, y, vx, vy, psi) after the step.  Ref: cem_helper.py:380-400."""
+    v = jnp.sqrt(vx * vx + vy * vy) + acc * dt
+    psi_next = psi + v * jnp.tan(steer) / wheel_base * dt
+    vx_next = v * jnp.cos(psi_next)
+    vy_next = v * jnp.sin(psi_next)
+    return (x + vx_next * dt, y + vy_next * dt, vx_next, vy_next, psi_next)
+
+
 def step(acc: jnp.ndarray, steer: jnp.ndarray, state: jnp.ndarray,
          dt: float, wheel_base: float) -> jnp.ndarray:
     """One Euler step of bicycle kinematics for a batch of states.
 
     state: (B, 5) rows [x, y, vx, vy, psi]; acc/steer: (B,).
-    Ref: cem_helper.py:380-400.
     """
-    x, y, vx, vy, psi = state[:, 0], state[:, 1], state[:, 2], state[:, 3], state[:, 4]
-    v = jnp.sqrt(vx * vx + vy * vy) + acc * dt
-    psi_next = psi + v * jnp.tan(steer) / wheel_base * dt
-    vx_next = v * jnp.cos(psi_next)
-    vy_next = v * jnp.sin(psi_next)
-    x_next = x + vx_next * dt
-    y_next = y + vy_next * dt
-    return jnp.stack((x_next, y_next, vx_next, vy_next, psi_next), axis=1)
+    return jnp.stack(bicycle_step(*(state[:, i] for i in range(5)), acc,
+                                  steer, dt, wheel_base), axis=1)
 
 
 def rollout(acc: jnp.ndarray, steer: jnp.ndarray, state0: jnp.ndarray,
@@ -56,7 +62,22 @@ def rollout(acc: jnp.ndarray, steer: jnp.ndarray, state0: jnp.ndarray,
     acc, steer: (B, T) noisy control sequences.  state0: (B, 5) or (5,).
     The t-th output row records the state *before* applying controls[t]
     (matching the reference's record-then-step loop, cem_helper.py:451-461).
+    Runs the implementation the kernel table (:mod:`mpc_mmd_tpu.ops`) picks
+    for the platform: the Triton kernel on the GPU, :func:`rollout_scan` on
+    the CPU.
     """
+    from .ops import dispatch
+    from .ops.rollout_triton import rollout_triton
+    return dispatch("rollout", {
+        "xla": partial(rollout_scan, dt=dt, wheel_base=wheel_base),
+        "triton": partial(rollout_triton, dt=dt, wheel_base=wheel_base),
+    }, acc, steer, state0)
+
+
+def rollout_scan(acc: jnp.ndarray, steer: jnp.ndarray, state0: jnp.ndarray,
+                 dt: float, wheel_base: float
+                 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Plain-XLA :func:`rollout`: one ``lax.scan`` over time."""
     if state0.ndim == 1:
         state0 = jnp.broadcast_to(state0[None, :], (acc.shape[0], state0.shape[0]))
 

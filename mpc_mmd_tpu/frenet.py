@@ -6,8 +6,8 @@ precomputed KKT inverse, finite-difference path parameters + curvature,
 state/obstacle/trajectory Frenet conversions with the velocity/acceleration
 chain rule through kappa and kappa').
 
-TPU-native notes
-----------------
+Design notes
+------------
 * Episode-level path fitting (the reference's scipy CubicSpline over the
   global route, host-side) stays on host at setup; everything per-MPC-step
   is jnp with static shapes.

@@ -1,7 +1,7 @@
 """Kernel Gram matrices and Maximum Mean Discrepancy.
 
-TPU-native design notes
------------------------
+Design notes
+------------
 * The Laplacian kernel exp(-||a-b||_1 / sigma) factors into a
   sigma-independent pairwise L1 *distance* matrix and a cheap per-sigma
   exp rescale.  The inner beta-CEM evaluates kernels of *row subsets of the
@@ -13,7 +13,7 @@ TPU-native design notes
   gather + exp.  This removes the dominant O(iters * samples * k * M * F)
   feature-difference traffic entirely.
 * Distances are computed via broadcast |a_i - b_j| summed over features —
-  an 8x128-lane VPU reduction.  Feature count here is 2*nvar = 22.
+  one fused elementwise reduction.  Feature count here is 2*nvar = 22.
 
 Reference parity: kernel_computation.py:20-87 (Laplace kernel + MMD with the
 all-zeros target sample set and dropped third term); Gaussian and Matern
@@ -33,7 +33,7 @@ def pairwise_l1(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
 
 
 def pairwise_l2sq(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
-    """Pairwise squared-L2 distances via the matmul expansion (MXU-friendly)."""
+    """Pairwise squared-L2 distances via the matmul expansion."""
     aa = jnp.sum(A * A, axis=-1)
     bb = jnp.sum(B * B, axis=-1)
     ab = jnp.einsum("...mf,...nf->...mn", A, B)
@@ -92,15 +92,14 @@ def blockwise_mmd_vs_zero(beta: jnp.ndarray, cost: jnp.ndarray, sigma,
     The quadratic term beta^T K beta tiles over row blocks with on-chip
     accumulation — the same blockwise structure as flash/ring attention, which
     is this domain's honest "long-context analog" (SURVEY.md §5): the sample
-    axis, not sequence, is what grows at pod scale.  Peak memory O(block * N)
-    instead of O(N^2).  Exact (no approximation).
+    axis, not sequence, is what grows with the device count.  Peak memory
+    O(block * N) instead of O(N^2).  Exact (no approximation).
 
     Accepts the same batched (..., N) beta/cost and scalar-or-batched sigma
-    signatures as :func:`mmd_vs_zero`.  On TPU at large N this path is also
-    the more ACCURATE one: measured 9e-6 relative to an f64 oracle at
-    N=2000 vs 1.6e-2 for the dense einsum, whose quadratic term rounds
-    through the default single-pass-bf16 matmul precision (the deliberate
-    policy for the tiny production k — see ProblemConfig.matmul_precision).
+    signatures as :func:`mmd_vs_zero`.  At large N this path is also the
+    more accurate one under a reduced default matmul precision (TF32 on the
+    GPU): its quadratic term is not one big contraction rounded at that
+    precision (see ProblemConfig.matmul_precision).
     """
     if beta.shape != cost.shape:
         raise ValueError(f"beta {beta.shape} and cost {cost.shape} must "

@@ -1,11 +1,11 @@
 """Batched small-matrix linear algebra in pure jnp.
 
-XLA lowers ``jnp.linalg.solve`` to LAPACK custom-calls on CPU and a generic
-LU kernel on TPU; for the huge batches of tiny systems this engine produces
+XLA lowers ``jnp.linalg.solve`` to LAPACK custom-calls on CPU and to
+library calls on the GPU; for the huge batches of tiny systems this engine produces
 (10k+ simultaneous (k+1)-dim reduced-set QPs per CEM iteration,
 k = num_reduced <= ~16) that is the wrong tool.  These routines unroll
 Cholesky + triangular substitution over the (static, small) dimension as
-element-wise/vector ops, which XLA fuses into a handful of VPU kernels with
+element-wise/vector ops, which XLA fuses into a handful of kernels with
 no custom-call round trips — orders of magnitude faster for this regime and
 identical math.
 

@@ -1,15 +1,17 @@
-"""Device-mesh scaling: scenario-sharded solve sweeps over pod slices.
+"""Device-mesh scaling: scenario-sharded solve sweeps over several GPUs.
 
 The reference is strictly single-device (SURVEY.md §2.4: no pmap/pjit/mesh,
 inter-stage transport via npz files).  Here multi-chip scaling is first-class:
 
 * **Scenario axis (DP)** — independent MPC solves (obstacle configs x seeds)
   shard across the mesh with ``shard_map``; zero inter-chip traffic during
-  solves, ICI collectives only for statistics reduction (psum) at the end.
+  solves, collectives only for statistics reduction (psum) at the end.
+  The mesh is 1-D and follows the algorithm alone: the cards of one host
+  reach each other all to all over NVLink, so no torus shape carries over.
   This is the scaling axis that buys "solves/s" (SURVEY.md §5, §7).
 * Statistics (collision counts, acceptance fractions, cost moments) reduce
-  with ``jax.lax.psum`` inside the mapped region, so pod-scale validation
-  sweeps never materialize per-scenario data on one host.
+  with ``jax.lax.psum`` inside the mapped region, so multi-device
+  validation sweeps never materialize per-scenario data on one host.
 
 Multi-host: call ``jax.distributed.initialize()`` before ``make_mesh`` and
 pass globally-sharded arrays; the same code path covers 1 chip -> N hosts.
@@ -52,9 +54,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> int:
     """Multi-host bring-up: ``jax.distributed.initialize`` + sanity barrier.
 
-    Call once per process before ``make_mesh`` on a pod slice; arguments
-    default to the TPU environment auto-detection.  Returns the process
-    index.  Single-process callers may skip this entirely.
+    Call once per process before ``make_mesh`` on a multi-host cluster.
+    Nothing detects a GPU cluster automatically: pass the coordinator
+    address (``host:port``), the process count and this process's id.
+    Returns the process index.  Single-process callers (one host, any
+    number of GPUs) skip this entirely.
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -140,7 +144,7 @@ def sharded_frenet_sweep(cfg: ProblemConfig, ws: Optional[Workspace] = None,
 
 def sharded_validator(cfg: ProblemConfig, ws: Optional[Workspace] = None,
                       n_mc: int = 1000, mesh: Optional[Mesh] = None):
-    """Mesh-sharded Monte-Carlo validator (pod-scale BASELINE config 5).
+    """Mesh-sharded Monte-Carlo validator (multi-device BASELINE config 5).
 
     Returns ``validate(cx, cy, init_state, x_obs_traj, y_obs_traj, key)``
     — the same signature as :func:`mpc_mmd_tpu.validate.make_validator` —
@@ -150,7 +154,7 @@ def sharded_validator(cfg: ProblemConfig, ws: Optional[Workspace] = None,
     per-solve results are bitwise identical to the single-device
     validator for every S.  Alongside the per-solve stats it returns
     psum-reduced totals ``(coll_total, lane_total)`` computed INSIDE the
-    mapped region with padding masked out — the pod-scale validation
+    mapped region with padding masked out — the multi-device validation
     summary never gathers per-scenario data to one host (SURVEY §5
     distributed row).
     """
@@ -234,7 +238,10 @@ def dryrun(n_devices: int) -> None:
 
     Tiny shapes, mmd_opt mode (exercises every subsystem: guess QP,
     projection, mother rollouts, inner beta-CEM, MMD risk, CEM update).
+    Enables the persistent compile cache first (a no-op on the CPU backend).
     """
+    from ..utils.compilation_cache import enable_persistent_cache
+    enable_persistent_cache()
     import dataclasses
 
     from ..config import static_workload
@@ -276,7 +283,7 @@ def dryrun(n_devices: int) -> None:
     n_acc, mean_r, max_r = stats(risk, jnp.float32(1.0e9))
     assert int(n_acc) == S
 
-    # mesh-sharded MC validator on the sweep outputs (pod-scale
+    # mesh-sharded MC validator on the sweep outputs (the multi-device
     # sweep -> validate shape, BASELINE config 5)
     validator = sharded_validator(cfg, ws, n_mc=8, mesh=mesh)
     vstats, coll_total, lane_total = validator(

@@ -5,11 +5,11 @@ acceleration and lane constraints (plus elliptical obstycle constraints in the
 deterministic variant) using the polar reformulation d*[cos a, sin a] and an
 augmented-Lagrangian multiplier update.
 
-TPU-native design notes
------------------------
-* Both KKT matrices are constant, so each AM iteration is two MXU matmuls
+Design notes
+------------
+* Both KKT matrices are constant, so each AM iteration is two matmuls
   (the prefactored inverses from :mod:`mpc_mmd_tpu.qp`) plus element-wise
-  VPU trig — no per-iteration linear solves.
+  trig — no per-iteration linear solves.
 * The stochastic variant (the one every risk-aware mode uses) drops the
   obstacle penalty from the QP entirely; the reference still computes the
   full (batch, num*num_obs) obstacle polar decomposition each iteration even

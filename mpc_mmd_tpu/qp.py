@@ -1,13 +1,13 @@
 """Equality-constrained QP machinery: workspace precompute + guess QP.
 
-TPU-native design notes
------------------------
+Design notes
+------------
 * Every KKT system whose matrix is iteration-independent — the guess QP
   (ref ``cem_helper.py:216-223``), both projection QPs
   (``projection.py:145-168``) and the Bernstein re-fit
   (``cem_helper.py:553-564``) — is factored ONCE on the host in float64 and
   its inverse stored in the workspace.  Every per-iteration "solve" is then a
-  single (n x n) @ (n x batch) matmul on the MXU instead of the reference's
+  single (n x n) @ (n x batch) matmul instead of the reference's
   repeated ``jnp.linalg.solve`` of the same matrix.
 * The guess QP's linear cost collapses analytically: the tracking targets are
   constant-per-segment, so A_vd_i^T b_vd_i = -k_p_v * v_des_i * (A_vd_i^T 1).
@@ -153,7 +153,7 @@ def kkt_solve(kkt: jnp.ndarray, kkt_inv: jnp.ndarray, rhs: jnp.ndarray,
               strategy: str) -> jnp.ndarray:
     """Solve KKT @ sol^T = rhs^T for a batch of right-hand sides (batch, n).
 
-    prefactored: one MXU matmul with the host-float64 inverse.
+    prefactored: one matmul with the host-float64 inverse.
     exact: the reference's jnp.linalg.solve (projection.py:167-168).
     """
     if strategy == "prefactored":

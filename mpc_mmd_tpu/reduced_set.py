@@ -5,8 +5,8 @@ representative rollouts and optimal weights beta (sum=1) minimizing the MMD
 between the weighted reduced set and the uniform mother distribution — the
 paper's core contribution (arXiv 2501.19045).
 
-TPU-native redesign (vs ``synthetic_static_obs/compute_beta.py``)
-----------------------------------------------------------------
+Redesign (vs ``synthetic_static_obs/compute_beta.py``)
+-----------------------------------------------------
 The reference recomputes pairwise feature differences (k x M x 22) for every
 one of 100 beta-samples x 20 CEM iterations (compute_beta.py:120-127 calling
 kernel_computation.py:58-65).  But every kernel evaluated is a *row/column
@@ -35,14 +35,14 @@ from jax import lax
 
 from .config import ProblemConfig
 from .kernels import kernel_of, pairwise_l1, pairwise_l2sq
-from .linalg import eq_qp_solve
+from .ops import eq_qp_solve, topk
 
 
 class ReducedSet(NamedTuple):
     beta: jnp.ndarray       # (k,) optimal weights.  Slot order depends on
     #                       #  solve_strategy: ascending-|beta| for "exact"
     #                       #  (reference argsort), descending for the fast
-    #                       #  path (_topk).  beta/x_red/y_red slots always
+    #                       #  path (ops.topk).  beta/x_red/y_red slots always
     #                       #  stay index-consistent with each other.
     sigma: jnp.ndarray      # ()   kernel bandwidth (reference quirk: drawn
     #                       #      from the *post-update* sample batch)
@@ -81,41 +81,31 @@ def _beta_qp(K_red: jnp.ndarray, row_sum: jnp.ndarray, M: int,
                + jnp.einsum("si,si->s", q, beta))
         return beta, mmd
 
-    # Block elimination (C is PD thanks to the qp_reg ridge).  On TPU a
-    # single Pallas kernel runs the whole factorization in registers
-    # (ops/qp_pallas.py); elsewhere the fused-jnp unroll (linalg.py).
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
+    # Block elimination (C is PD thanks to the qp_reg ridge); the kernel
+    # table in ops/ picks the Triton kernel or the fused-jnp unroll.
     r = -lincost
-    if on_tpu:
-        from .ops.qp_pallas import eq_qp_solve_pallas
-        beta, mu = eq_qp_solve_pallas(cost, r)
-    else:
-        beta, mu = eq_qp_solve(cost, r)
+    beta, mu = eq_qp_solve(cost, r)
 
     # mmd = b'K_red b + q.b with q = -2/M sum_m K_mixed = -2 r / rho.
     # KKT identity (rho K_red + reg I) b = r - mu 1 and sum(b) = 1 give
     #   b' K_red b = (b.r - mu - reg |b|^2) / rho,
     # so  mmd = (-b.r - mu - reg |b|^2) / rho  — three (S, k) dot products
-    # instead of the O(S k^2) contraction (profiled ~90 ms/solve).
+    # instead of the O(S k^2) contraction.
     br = jnp.sum(beta * r, axis=-1)
     mmd = (-br - mu - b.qp_reg * jnp.sum(beta * beta, axis=-1)) / b.rho_beta
     return beta, mmd
 
 
 def _beta_qp_t(K_red_t: jnp.ndarray, row_sum_t: jnp.ndarray, M: int,
-               cfg: ProblemConfig, interpret: bool = False):
+               cfg: ProblemConfig):
     """Lane-major variant of :func:`_beta_qp` (fast mode only).
 
     K_red_t: (k, k, B) with K_red_t[i, j] = K_red[..., i, j];
     row_sum_t: (k, B).  Returns (beta_t (k, B), mmd_cost (B,)).
 
-    This is the Pallas QP kernel's NATIVE layout: the (k*k, B) flatten is
-    free here, where the standard entry pays an 11 ms/solve relayout of the
-    (B, k, k)-ordered einsum output (whose two minor dims tile-pad 20x, see
-    benchmarks/PROFILE_NOTES.md "minor-dim tile padding").
+    The selection chain emits K_red in this layout ("xt", see
+    :func:`select_reduced_set_batched`); the solve itself runs on the
+    (B, k, k) view.
     """
     b = cfg.beta_cem
     k = K_red_t.shape[0]
@@ -123,66 +113,12 @@ def _beta_qp_t(K_red_t: jnp.ndarray, row_sum_t: jnp.ndarray, M: int,
     eye_flat = jnp.eye(k, dtype=K_red_t.dtype).reshape(k * k, 1)
     cost_t = b.rho_beta * K_red_t.reshape(k * k, B) + b.qp_reg * eye_flat
     r_t = (b.rho_beta / M) * row_sum_t
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if on_tpu or interpret:
-        from .ops.qp_pallas import eq_qp_solve_pallas_t
-        beta_t, mu = eq_qp_solve_pallas_t(cost_t, r_t, k, interpret=interpret)
-    else:
-        C_b = jnp.moveaxis(cost_t.reshape(k, k, B), -1, 0)
-        beta_b, mu = eq_qp_solve(C_b, r_t.T)
-        beta_t = beta_b.T
+    C_b = jnp.moveaxis(cost_t.reshape(k, k, B), -1, 0)
+    beta_b, mu = eq_qp_solve(C_b, r_t.T)
+    beta_t = beta_b.T
     br = jnp.sum(beta_t * r_t, axis=0)
     mmd = (-br - mu - b.qp_reg * jnp.sum(beta_t * beta_t, axis=0)) / b.rho_beta
     return beta_t, mmd
-
-
-def _topk_indices(x: jnp.ndarray, k: int) -> jnp.ndarray:
-    """Indices of the k largest entries (descending), via k rounds of
-    argmax + mask-out.
-
-    ``lax.top_k`` lowers to a sorting network that costs ~2 ms per call at
-    (10^4, 100) rows on v5e; k unrolled argmax reductions are pure VPU
-    element-ops (~20x cheaper for k=10).  Tie-breaking matches top_k
-    (first occurrence wins).
-    """
-    iota = jnp.arange(x.shape[-1])
-    idxs = []
-    for _ in range(k):
-        i = jnp.argmax(x, axis=-1)
-        idxs.append(i)
-        x = jnp.where(iota == i[..., None], -jnp.inf, x)
-    return jnp.stack(idxs, axis=-1)
-
-
-def _topk(x: jnp.ndarray, k: int, absolute: bool = False,
-          slice_to: int | None = None) -> jnp.ndarray:
-    """Backend-dispatched top-k indices (descending; ties -> first index).
-
-    On TPU the in-scan cost of ANY XLA formulation (top_k sort network,
-    argsort slice, argmax-and-mask rounds) is 0.2-0.4 ms per inner-CEM
-    iteration at the production (10^4, 100) shape — the k data-dependent
-    rounds make repeated HBM passes.  The Pallas kernel
-    (ops/topk_pallas.py) does the rounds in VMEM in one pass (~2x the
-    whole stage); elsewhere fall back to argmax rounds.
-    """
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if on_tpu:
-        from .ops.topk_pallas import topk_indices_pallas
-        return topk_indices_pallas(x, k, absolute=absolute,
-                                   slice_to=slice_to)
-    y = x if slice_to is None else x[..., :slice_to]
-    if absolute:
-        y = jnp.abs(y)
-    # NaN-last, matching the Pallas kernel: a NaN lane never wins a round
-    # (argmax would otherwise propagate it backend-dependently).
-    y = jnp.where(jnp.isnan(y), -jnp.inf, y)
-    return _topk_indices(y, k)
 
 
 def _cov_ddof1(X: jnp.ndarray) -> jnp.ndarray:
@@ -219,10 +155,8 @@ def select_reduced_set(cfg: ProblemConfig, cx: jnp.ndarray, cy: jnp.ndarray,
     # X^T X/(n-1) + jitter*I with X only (n_ellite, M+1)-centred elites, so
     # N(mean, cov) sampling is mean + u @ X / sqrt(n-1) + sqrt(jitter) * z
     # with u, z standard normal — identical distribution, NO (M+1)^2
-    # covariance formation and NO (M+1)-dim Cholesky.  Those two ops are
-    # ~90% of the inner-CEM runtime on TPU (profiled: 4.5 ms cholesky +
-    # 3.5 ms covariance einsum per iteration at M=100).  "exact" keeps the
-    # reference's jnp.cov + multivariate_normal path (compute_beta.py:52-68).
+    # covariance formation and NO (M+1)-dim Cholesky per iteration.  "exact"
+    # keeps the reference's jnp.cov + multivariate_normal path (compute_beta.py:52-68).
     fast = cfg.solve_strategy != "exact"
 
     mean0 = jnp.zeros(M + 1)
@@ -246,20 +180,17 @@ def select_reduced_set(cfg: ProblemConfig, cx: jnp.ndarray, cy: jnp.ndarray,
         if fast:
             # top-k by |beta| (descending; the reduced-set QP and MMD are
             # permutation-invariant, and beta/rollout outputs stay
-            # index-consistent).  argmax-and-mask beats both the reference's
-            # full argsort and lax.top_k on TPU.
-            idx_top = _topk_indices(jnp.abs(samples[:, :M]), k)  # (S, k)
+            # index-consistent) instead of the reference's full argsort.
+            idx_top = topk(samples, k, absolute=True, slice_to=M)  # (S, k)
         else:
             idx_sorted = jnp.argsort(jnp.abs(samples[:, :M]), axis=1)
             idx_top = idx_sorted[:, M - k:]                  # ascending |beta|
 
         if fast:
-            # Irregular memory access -> dense MXU contractions.  Both the
-            # row gather D[idx_top] and the column sub-selection scalarize
-            # on TPU (profiled ~0.2 s/solve for the row gather alone, and
-            # ~12 ms/iter for the lane-axis take_along_axis); as one-hot
-            # matmuls they ride the systolic array, and exp commutes with
-            # selection so K_red[i, j] = exp(-rows)[i, idx_j].
+            # Irregular memory access -> dense one-hot contractions: the
+            # row gather D[idx_top] and the column sub-selection become
+            # matmuls, and exp commutes with selection so
+            # K_red[i, j] = exp(-rows)[i, idx_j].
             onehot = (idx_top[:, :, None]
                       == jnp.arange(M)[None, None, :]).astype(D.dtype)
             rows = jnp.einsum("skr,rm->skm", onehot, D)      # (S, k, M)
@@ -289,13 +220,12 @@ def select_reduced_set(cfg: ProblemConfig, cx: jnp.ndarray, cy: jnp.ndarray,
         key, _ = jax.random.split(key)
         upd_key, _sub = jax.random.split(key)
         if fast:
-            # only the n_el best are consumed; full argsort lowers to a TPU
-            # sort network, n_el argmin-and-mask rounds are pure VPU ops.
-            # Tie-breaking matches stable argsort (first index wins).
-            # NaN costs -> +inf so argmax rounds skip them like argsort's
+            # only the n_el best are consumed: a top-k of -cost, whose
+            # tie-breaking matches stable argsort (first index wins).
+            # NaN costs -> +inf so the top-k skips them like argsort's
             # NaN-last ordering does on the exact path.
             cost = jnp.where(jnp.isnan(cost), jnp.inf, cost)
-            idx_el = _topk_indices(-cost, n_el)              # (n_el,)
+            idx_el = topk(-cost, n_el)                       # (n_el,)
             elites = samples[idx_el]
         else:
             order = jnp.argsort(cost)
@@ -336,34 +266,9 @@ def select_reduced_set(cfg: ProblemConfig, cx: jnp.ndarray, cy: jnp.ndarray,
                       res=mins)
 
 
-def use_fused_inner_cem(cfg: ProblemConfig) -> bool:
-    """Whether to run the fused Pallas selection-STAGE kernel (opt-in only).
-
-    Note this selects between two *selection-stage* implementations inside
-    :func:`select_reduced_set_batched` (which is the production fast-mode
-    inner CEM either way); it no longer switches between batched and
-    vmapped drivers.
-
-    Measured on a real v5e-lite chip the fused kernel LOSES to the XLA
-    fast path (0.88 s vs 0.33 s per mmd_opt solve at the baseline config):
-    the (C, S/128) grid serializes ~100 small blocks per call on the single
-    TensorCore, the same launch/iteration-bound failure mode as the reverted
-    inner-CEM megakernel (see git history).  XLA's large fused batched ops
-    over the flattened (C*S) axis use the VPU/MXU better.  The kernel and
-    the batched driver stay available behind ``MPC_MMD_FUSED_CEM=1`` for
-    bigger chips/future re-evaluation; interpret-mode parity tests keep
-    them honest.
-    """
-    import os
-    if cfg.solve_strategy == "exact":
-        return False
-    return os.environ.get("MPC_MMD_FUSED_CEM") == "1"
-
-
 def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
                                cy: jnp.ndarray, x_roll: jnp.ndarray,
                                y_roll: jnp.ndarray,
-                               interpret: bool = False,
                                selection: str | None = None) -> ReducedSet:
     """All-candidate inner CEM (the production fast-mode path).
 
@@ -372,48 +277,34 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
     candidates in both — the reference's inner CEM carries no per-candidate
     key), verified by tests/test_ops.py::test_batched_inner_cem_matches_vmap.
 
-    selection: "xla" (default) runs the top-k via the one-pass Pallas kernel
-    (ops/topk_pallas.py on TPU; argmax rounds elsewhere) and the kernel
-    matrices as one-hot MXU einsums, which XLA fuses with the exp —
-    profiled fastest on v5e.  "fused" runs the whole selection stage as the
-    round-1 Pallas kernel (ops/topk_kernel_pallas.py) — kept behind
-    MPC_MMD_FUSED_CEM=1 for bigger chips (it lost on v5e-lite, see
-    benchmarks/PROFILE_NOTES.md).  "g" is the reduce-before-gather
-    formulation (benchmarks/micro_g_formulation.py): row_sum as one fused
-    exp+reduce over ALL mother rows followed by a scalar gather (the
-    reduction commutes with the row gather), K_red from feature-space
-    pairwise L1 — no (C, S, k, M) rows tensor at all.  Values match the
-    einsum form up to sum reassociation (~1e-5 relative).  Opt in via
-    MPC_MMD_SELECTION=g.  "xt" is the lane-major chain: same math as "xla"
-    but K_red is emitted straight into the QP kernel's native (k*k, C*S)
-    layout ("cskm,csjm->kjcs" — the big dims land on the tiled minor axes),
-    row_sum emitted transposed, and beta kept (k, C, S) through the whole
-    scan, so no (C,S,k,k) minor-dim-padded tensor is ever materialized and
-    no relayout precedes the QP (PROFILE_NOTES "minor-dim tile padding").
+    selection (default ``MPC_MMD_SELECTION`` or "xla") picks one of three
+    plain-XLA formulations of the selection stage, all with the same math:
+
+    * "xla": top-k (ops.topk) and the kernel matrices as one-hot einsums,
+      which XLA fuses with the exp.
+    * "g": the reduce-before-gather form — row_sum as one fused exp+reduce
+      over ALL mother rows followed by a scalar gather (the reduction
+      commutes with the row gather), K_red from feature-space pairwise L1;
+      no (C, S, k, M) rows tensor at all.  Values match the einsum form up
+      to sum reassociation (~1e-5 relative).
+    * "xt": the lane-major chain — K_red emitted as (k, k, C*S)
+      ("cskm,csjm->kjcs"), row_sum emitted transposed, and beta kept
+      (k, C, S) through the whole scan.
+
+    Which one is fastest on the H100 is not measured yet.
     """
     import os
     if selection is None:
-        selection = os.environ.get("MPC_MMD_SELECTION") or (
-            "fused" if use_fused_inner_cem(cfg) else "xla")
-    if selection not in ("xla", "xt", "fused", "g"):
+        selection = os.environ.get("MPC_MMD_SELECTION") or "xla"
+    if selection not in ("xla", "xt", "g"):
         raise ValueError(f"unknown selection {selection!r} "
-                         "(expected 'xla', 'xt', 'fused' or 'g')")
+                         "(expected 'xla', 'xt' or 'g')")
     kind = cfg.risk.kernel
-    if kind != "laplace" and selection in ("fused", "g"):
-        # the Pallas megakernel and the reduce-before-gather formulation
-        # hard-code the Laplace exp; non-laplace kernels take the default
-        # XLA selection chain (A/B-only paths anyway, PROFILE_NOTES)
+    if kind != "laplace" and selection == "g":
+        # the reduce-before-gather formulation hard-codes the Laplace exp;
+        # non-laplace kernels take the default selection chain
         selection = "xla"
-    # "xt": the lane-major chain.  K_red is emitted directly in the QP
-    # kernel's (k, k, C*S) layout via a transposed-output einsum (the big
-    # C*S dims land on the tiled minor axes -> 1.5x padding instead of the
-    # (C,S,k,k) order's 20x), row_sum is emitted transposed, and beta stays
-    # (k, C, S) through the whole scan — so NO transpose ever touches a
-    # small-minor-dim layout (the failure mode of the earlier transposed-QP
-    # attempt, see benchmarks/PROFILE_NOTES.md).
     lane_major = selection == "xt"
-    if selection == "fused":
-        from .ops.topk_kernel_pallas import topk_kernel_matrices
 
     b = cfg.beta_cem
     M = cfg.risk.num_mother
@@ -442,8 +333,7 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
     # per-lane floor implementing the sigma clip as ONE fused elementwise
     # max: -inf on the beta lanes, sigma_clip on the bandwidth lane.  The
     # .at[..., -1].set(clip(...)) form lowers to a dynamic-update-slice
-    # that re-materializes the whole fresh tensor every iteration
-    # (profiled 22 ms/solve on v5e-lite).
+    # that re-materializes the whole fresh tensor every iteration.
     lane_floor = jnp.full((M + 1,), -jnp.inf).at[-1].set(b.sigma_clip)
 
     # Hoist the CEM-update noise out of the scan: replicate the in-scan key
@@ -472,8 +362,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
     # so new_samples = B_t @ elites + Z_t with B_t = [[I]; [A_t]] and
     # Z_t = [[0]; [jit * z_t]], both depending ONLY on the hoisted noise —
     # precomputed here for every iteration.  This collapses the in-scan
-    # mean / fresh-einsum / concatenate chain (profiled 82 us concat copy +
-    # fresh passes per iteration) into ONE (S, n_el) x (C, n_el, M+1) GEMM.
+    # mean / fresh-einsum / concatenate chain into ONE
+    # (S, n_el) x (C, n_el, M+1) GEMM.
     s_u = jnp.sum(u_all, axis=2)                            # (maxiter, S-n_el)
     A_all = (inv_sqrt * u_all
              + ((1.0 - inv_sqrt * s_u) / n_el)[..., None])  # (., S-n_el, n_el)
@@ -491,13 +381,10 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
         its outputs for a row can be cached across iterations when the row
         itself is carried unchanged (see elite_carry below).
         """
-        if selection == "fused":
-            row_sum, K_red, idx_top = topk_kernel_matrices(
-                samples_sub, D, k, interpret=interpret)
-        elif selection == "g":
+        if selection == "g":
             sigma = samples_sub[..., -1]                     # (C, Ss), clipped
-            idx_top = _topk(samples_sub, k, absolute=True,
-                            slice_to=M)                      # (C, Ss, k)
+            idx_top = topk(samples_sub, k, absolute=True,
+                           slice_to=M)                       # (C, Ss, k)
             onehot = (idx_top[..., None]
                       == jnp.arange(M)).astype(D.dtype)      # (C, Ss, k, M)
             # fused exp+reduce: XLA materializes only the (C, Ss, M) output
@@ -513,8 +400,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
         elif lane_major:
             sigma = samples_sub[..., -1]                     # (C, Ss), clipped
             Cc, Ss = sigma.shape
-            idx_top = _topk(samples_sub, k, absolute=True,
-                            slice_to=M)                      # (C, Ss, k)
+            idx_top = topk(samples_sub, k, absolute=True,
+                           slice_to=M)                       # (C, Ss, k)
             onehot = (idx_top[..., None]
                       == jnp.arange(M)).astype(D.dtype)      # (C, Ss, k, M)
             rows = jnp.einsum("cskr,crm->cskm", onehot, D)
@@ -526,19 +413,13 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
             K_red_t = jnp.einsum("cskm,csjm->kjcs", K_mixed, onehot)
             row_sum_t = jnp.einsum("cskm->kcs", K_mixed)
             beta_t, cost = _beta_qp_t(K_red_t.reshape(k, k, Cc * Ss),
-                                      row_sum_t.reshape(k, Cc * Ss), M, cfg,
-                                      interpret=interpret)
+                                      row_sum_t.reshape(k, Cc * Ss), M, cfg)
             beta_opt = beta_t.reshape(k, Cc, Ss)             # lane-major!
             cost = cost.reshape(Cc, Ss)
         else:
             sigma = samples_sub[..., -1]                     # (C, Ss), clipped
-            # NOTE: keep the one-hot as an XLA iota-compare — emitting it
-            # from the Pallas top-k kernel (topk_onehot_pallas) measured
-            # 5.4 -> 3.5 solves/s: the serial-grid kernel writes the 40 MB
-            # tensor slower than XLA's fused compare, and the kernel output
-            # layout blocks fusion into the selection einsum.
-            idx_top = _topk(samples_sub, k, absolute=True,
-                            slice_to=M)                      # (C, Ss, k)
+            idx_top = topk(samples_sub, k, absolute=True,
+                           slice_to=M)                       # (C, Ss, k)
             onehot = (idx_top[..., None]
                       == jnp.arange(M)).astype(D.dtype)      # (C, Ss, k, M)
             rows = jnp.einsum("cskr,crm->cskm", onehot, D)
@@ -564,18 +445,16 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
         beta_opt = jnp.where(jnp.isnan(beta_opt), 0.0, beta_opt)
         return idx_top, beta_opt, cost
 
-    # One-hot GATHER contractions must be value-exact: on TPU the default
-    # matmul precision runs f32 dots as single-pass bf16, which would round
-    # every gathered value (and the carried elite ROWS through the affine
-    # update's identity block) to ~2^-9 relative.  These are all tiny
-    # contractions (<= 1e7 MACs vs 1e9 for the selection einsums), so
-    # pinning them to f32 costs nothing measurable.
+    # One-hot GATHER contractions must be value-exact: a reduced default
+    # matmul precision (TF32 on the GPU) would round every gathered value
+    # (and the carried elite ROWS through the affine update's identity
+    # block).  These are all tiny contractions (<= 1e7 MACs vs 1e9 for the
+    # selection einsums), so they are pinned to full f32.
     _exact = jax.lax.Precision.HIGHEST
 
     def _update_samples(samples, cost, B_t, Z_t):
-        # one-hot MXU gather: take_along_axis along the sample axis
-        # scalarizes on TPU (same failure mode as the selection gathers)
-        idx_el = _topk(-cost, n_el)                          # (C, n_el)
+        # one-hot gather of the elites along the sample axis
+        idx_el = topk(-cost, n_el)                           # (C, n_el)
         onehot_el = (idx_el[..., None]
                      == jnp.arange(S)).astype(samples.dtype)
         elites = jnp.einsum("ces,csm->cem", onehot_el, samples,
@@ -595,7 +474,6 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
     def _winner(idx_top, beta_opt, cost, new_samples):
         i_min = jnp.argmin(cost, axis=1)                     # (C,)
         # one-hot contractions for the winner row of each candidate
-        # (per-candidate take_along_axis scalarizes on TPU)
         oh_min = (i_min[:, None]
                   == jnp.arange(S)).astype(new_samples.dtype)
         return (jnp.einsum("cs,kcs->ck" if lane_major else "cs,csk->ck",
@@ -613,11 +491,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
     # the elites' selection/QP outputs from this iteration are exactly what
     # the next iteration would recompute for them.  Carry (idx_top, beta,
     # cost) for the elite rows and run the heavy selection stage on only
-    # the S - n_el fresh rows (~11% of the dominant solve stage at the
-    # production shape).  The fused kernel path keeps full recompute (its
-    # row blocking assumes the full batch).
-    elite_carry = (selection != "fused"
-                   and os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0")
+    # the S - n_el fresh rows.
+    elite_carry = os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0"
 
     if elite_carry:
         # iteration 0 peeled out of the scan (all rows fresh: full-batch
@@ -629,13 +504,13 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
         # (S, M+1) row batch, so the top-k and the one-hot are identical
         # across candidates — compute them once and contract the shared
         # (S, k, M) one-hot against every candidate's D (the einsums then
-        # read a 100x smaller one-hot operand).  Only the "xla" selection
-        # exploits this; g/fused fall back to the generic per-candidate
-        # path.
+        # read a 100x smaller one-hot operand).  The "xla" and "xt"
+        # selections exploit this; "g" falls back to the generic
+        # per-candidate path.
         if selection in ("xla", "xt"):
             sigma0 = samples0_row[:, -1]                     # (S,), clipped
-            idx0_1 = _topk(samples0_row[None], k, absolute=True,
-                           slice_to=M)[0]                    # (S, k)
+            idx0_1 = topk(samples0_row[None], k, absolute=True,
+                          slice_to=M)[0]                     # (S, k)
             onehot0 = (idx0_1[..., None]
                        == jnp.arange(M)).astype(D.dtype)     # (S, k, M)
             rows0 = jnp.einsum("skr,crm->cskm", onehot0, D)
@@ -650,7 +525,7 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
                 row_sum0_t = jnp.einsum("cskm->kcs", K_mixed0)
                 beta0_t, cost0 = _beta_qp_t(
                     K_red0_t.reshape(k, k, C * S),
-                    row_sum0_t.reshape(k, C * S), M, cfg, interpret=interpret)
+                    row_sum0_t.reshape(k, C * S), M, cfg)
                 beta0 = beta0_t.reshape(k, C, S)
                 cost0 = cost0.reshape(C, S)
             else:
@@ -719,7 +594,7 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: jnp.ndarray,
         return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=x_red,
                           y_red=y_red, res=jnp.moveaxis(mins, 0, 1))
     else:
-        # full-recompute fallback (fused selection / MPC_MMD_ELITE_CARRY=0):
+        # full-recompute fallback (MPC_MMD_ELITE_CARRY=0):
         # same helpers, winner extracted every iteration (no peel)
         def iteration(samples, uz):
             B_t, Z_t = uz

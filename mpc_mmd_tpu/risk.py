@@ -8,7 +8,7 @@ risk: elliptical obstacle violation / lane violation "bars", then one of
 * ``cvar``      — CVaR_alpha tail mean of the violation samples
 * ``saa``       — sample-average violation indicator fraction
 
-TPU-native notes: the reference's per-candidate jitted vmaps
+Design note: the reference's per-candidate jitted vmaps
 (``synthetic_static_obs/optimizer/costs.py:25-48``) become plain batched
 expressions here — callers vmap once over the candidate axis; the CVaR
 NaN-masking + ``lax.cond`` dance (costs.py:215-219) is replaced by an exactly

@@ -168,3 +168,28 @@ def ego_initial_state(workload: str = "static") -> Tuple[jnp.ndarray, jnp.ndarra
     mean = jnp.asarray([v_des] * 4 + [0.0] * 4)
     cov = jnp.asarray(np.diag([20.0] * 4 + [100.0] * 4), jnp.float32)
     return init_state, mean, cov, v_des
+
+
+def blocking_scenarios(tot_time: jnp.ndarray, S: int, n_obs: int = 2
+                       ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Tie-free static obstacle scenarios (x_traj, y_traj), (S, n_obs, num).
+
+    Obstacles sit in the ego's near-field path (pairs 9 m apart from
+    x = 8 m, in-lane), so every candidate incurs a distinct non-zero
+    obstacle cost and the CEM's argsorts meet no exact ties — which makes
+    sharded and unsharded solves comparable to rtol 1e-3.
+    """
+    from .dynamics import constant_velocity_obstacles
+
+    xts, yts = [], []
+    for i in range(S):
+        x0 = (np.resize([8.0 + 0.37 * i, 13.0 + 0.53 * i], n_obs)
+              + np.repeat(np.arange((n_obs + 1) // 2) * 9.0, 2)[:n_obs])
+        y0 = np.resize([1.75 - 0.11 * i, 0.6 + 0.13 * i], n_obs)
+        z = jnp.zeros(n_obs)
+        xt, yt, _ = constant_velocity_obstacles(jnp.asarray(x0),
+                                                jnp.asarray(y0), z, z, z,
+                                                tot_time)
+        xts.append(xt)
+        yts.append(yt)
+    return jnp.stack(xts), jnp.stack(yts)

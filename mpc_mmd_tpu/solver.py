@@ -12,8 +12,8 @@ Pipeline per CEM iteration (ref cem.py:221-315):
   obstacle risk -> sort, keep top ellite_num_cost -> lane risk ->
   scalar cost -> top-ellite_num elites -> CEM distribution update.
 
-TPU-native notes
-----------------
+Design notes
+------------
 * All argsort+15-gather chains collapse to one argsort + a single stacked
   gather over a bundled pytree.
 * RNG consumption (PRNGKey(3*idx_mpc + 5*idx + 7), split order, shared
@@ -83,31 +83,14 @@ def with_matmul_precision(fn, precision: str):
     return wrapped
 
 
-def resolve_rollout_backend(cfg: ProblemConfig) -> str:
-    """"auto" resolves to the flat-lane XLA scan everywhere.
-
-    XLA:TPU compiles the scan body into ONE fused on-chip loop (no
-    per-step kernel launches); measured 0.031 ms/call at the production
-    (10^4 lanes, T=50) shape vs 1.7-2.0 ms for the Pallas rollout kernel
-    at ANY lane-block size (benchmarks/micro_rollout_block.py) — the
-    kernel's sequential fori_loop over VMEM rows is step-overhead-bound.
-    The kernel stays available via rollout_backend="pallas".
-    """
-    if cfg.rollout_backend != "auto":
-        return cfg.rollout_backend
-    return "scan"
-
-
-def batched_rollouts(cfg: ProblemConfig, backend: str, key, acc_T, steer_T,
-                     state0, mother: bool):
+def batched_rollouts(cfg: ProblemConfig, key, acc_T, steer_T, state0,
+                     mother: bool):
     """Noisy rollouts for all candidates as ONE flat-lane rollout call.
 
     acc_T, steer_T: (C, T).  state0: (5,) shared or (n_init, 5) per-rollout
     (Frenet noisy-init ensembles).  Returns x, y of shape (C, n, T) with
     n = num_mother (mother=True) or num_reduced.
     """
-    from .ops import fused_rollout
-
     C, T = acc_T.shape
     R = cfg.risk.num_reduced
     dt, L = cfg.horizon.dt, cfg.vehicle.wheel_base
@@ -127,10 +110,7 @@ def batched_rollouts(cfg: ProblemConfig, backend: str, key, acc_T, steer_T,
     else:
         s0 = jnp.broadcast_to(state0[None, :, :], (C, n, 5)).reshape(C * n, 5)
 
-    if backend == "pallas":
-        x, y = fused_rollout(a_flat, s_flat, s0, dt, L)
-    else:
-        x, y = rollout(a_flat, s_flat, s0, dt, L)
+    x, y = rollout(a_flat, s_flat, s0, dt, L)
     return x.reshape(C, n, T), y.reshape(C, n, T)
 
 
@@ -166,7 +146,6 @@ def _solve_body(cfg: ProblemConfig, ws: Workspace, idx_mpc, init_state,
     dt = cfg.horizon.dt
     L = cfg.vehicle.wheel_base
     w_lane, w_obs = cfg.risk.weights()
-    backend = resolve_rollout_backend(cfg)
 
     params0 = initial_params(cfg, mean_param, cov_param)
     b_eq_x, b_eq_y = boundary_vectors(cfg, init_state)
@@ -213,8 +192,8 @@ def _solve_body(cfg: ProblemConfig, ws: Workspace, idx_mpc, init_state,
             steer_T = jax.lax.with_sharding_constraint(steer_T, spec)
 
         if mode == "mmd_opt":
-            xr, yr = batched_rollouts(cfg, backend, key, acc_T, steer_T,
-                                      state0, mother=True)
+            xr, yr = batched_rollouts(cfg, key, acc_T, steer_T, state0,
+                                      mother=True)
             cxr, cyr = refit_coefficients(ws, xr.reshape(nb * M, T),
                                           yr.reshape(nb * M, T))
             cxr = cxr.reshape(nb, M, -1)
@@ -226,8 +205,6 @@ def _solve_body(cfg: ProblemConfig, ws: Workspace, idx_mpc, init_state,
                 )(cxr, cyr, xr, yr)
             else:
                 # production path: one batched inner CEM over all candidates
-                # (selection backend chosen inside: XLA einsums + Pallas
-                # top-k by default, MPC_MMD_FUSED_CEM=1 for the fused kernel)
                 rs = select_reduced_set_batched(cfg, cxr, cyr, xr, yr)
             x_roll, y_roll = rs.x_red, rs.y_red
             beta, sigma, res_beta = rs.beta, rs.sigma, rs.res
@@ -236,8 +213,8 @@ def _solve_body(cfg: ProblemConfig, ws: Workspace, idx_mpc, init_state,
                     cfg, b, sg, xr2, yr2, x_obs_T, y_obs_T)
             )(beta, sigma, x_roll, y_roll)
         else:
-            x_roll, y_roll = batched_rollouts(cfg, backend, key, acc_T,
-                                              steer_T, state0, mother=False)
+            x_roll, y_roll = batched_rollouts(cfg, key, acc_T, steer_T,
+                                              state0, mother=False)
             beta, sigma = uniform_beta, uniform_sigma
             res_beta = jnp.zeros((nb, cfg.beta_cem.maxiter))
             if mode == "mmd_random":
@@ -259,7 +236,7 @@ def _solve_body(cfg: ProblemConfig, ws: Workspace, idx_mpc, init_state,
         if candidate_mesh is not None:
             # gather the small per-candidate outputs back to replicated for
             # the selection/update stages (risk scalars + reduced rollouts
-            # are KB-sized; one all-gather over ICI)
+            # are KB-sized; one all-gather across the mesh)
             from jax.sharding import NamedSharding, PartitionSpec as P
             rep = NamedSharding(candidate_mesh, P())
             risk_obs = jax.lax.with_sharding_constraint(risk_obs, rep)
@@ -347,12 +324,9 @@ class Solver:
         scenario_chunk: how many scenarios run *concurrently* inside
         ``solve_batch`` (the rest pipeline sequentially via ``lax.map``
         within the same compiled program).  The mmd_opt inner CEM's
-        selection intermediates scale with chunk x num_batch x S x k x M
-        and fall off an HBM cliff beyond ~1 scenario on small chips
-        (profiled: every stage goes superlinear at 2x the candidate
-        count), so the default is 1 — full-batch sweeps then run at
-        single-stream throughput with one dispatch, instead of thrashing.
-        Raise it on big-HBM parts (v5p) where the working set fits."""
+        selection intermediates scale with chunk x num_batch x S x k x M;
+        the default is 1 (one scenario at a time, one dispatch).  The best
+        value on the H100's 80 GB is not measured yet."""
         self.cfg = cfg
         self.ws = ws if ws is not None else build_workspace(cfg)
         # cfg.matmul_precision is applied inside _solve itself

@@ -35,7 +35,7 @@ from .qp import Workspace, build_workspace, compute_guess, refit_coefficients
 from .projection import project
 from .reduced_set import select_reduced_set, select_reduced_set_batched
 from .sampling import cem_update, initial_params, scalar_cost
-from .solver import batched_rollouts, resolve_rollout_backend
+from .solver import batched_rollouts
 
 
 class FrenetSolveResult(NamedTuple):
@@ -113,7 +113,6 @@ def _solve_frenet_body(cfg: ProblemConfig, ws: Workspace, idx_mpc,
     dt = cfg.horizon.dt
     L = cfg.vehicle.wheel_base
     w_lane, w_obs = cfg.risk.weights()
-    backend = resolve_rollout_backend(cfg)
 
     x_g, y_g, v_g, vdot_g, psi_g, psidot_g = [init_state_global[i]
                                               for i in range(6)]
@@ -173,7 +172,7 @@ def _solve_frenet_body(cfg: ProblemConfig, ws: Workspace, idx_mpc,
             l_roll = jnp.zeros((nb, R, T))
         else:
             if mode == "mmd_opt":
-                xr, yr = batched_rollouts(cfg, backend, key, acc_T, steer_T,
+                xr, yr = batched_rollouts(cfg, key, acc_T, steer_T,
                                           init_states_global, mother=True)
                 cxr, cyr = refit_coefficients(ws, xr.reshape(nb * M, T),
                                               yr.reshape(nb * M, T))
@@ -189,7 +188,7 @@ def _solve_frenet_body(cfg: ProblemConfig, ws: Workspace, idx_mpc,
                 beta, sigma = rs.beta, rs.sigma
             else:
                 xg_roll, yg_roll = batched_rollouts(
-                    cfg, backend, key, acc_T, steer_T, init_states_global,
+                    cfg, key, acc_T, steer_T, init_states_global,
                     mother=False)
                 beta, sigma = uniform_beta, uniform_sigma
 

@@ -1,51 +1,51 @@
 """Persistent XLA compilation cache setup.
 
-The flagship mmd_opt solve program cold-compiles in minutes on TPU (the
-20-iteration outer scan nests a 20-iteration inner CEM vmapped over 100
-candidates).  A persistent on-disk cache makes every process after the first
-hit a warm executable (~seconds), which is what lets short-lived entry points
-(bench.py, __graft_entry__.py, CLI sweeps) start fast.
+The mmd_opt solve program nests a 20-iteration inner CEM vmapped over 100
+candidates inside the 20-iteration outer scan, so a cold compile takes a long
+time.  A persistent on-disk cache makes every process after the first load a
+compiled executable instead, which is what lets short-lived entry points
+(bench.py, chip_smoke.py, __graft_entry__.py, the CLIs) start fast.
+
+The cache lives where ``JAX_COMPILATION_CACHE_DIR`` says when it is set, and
+otherwise at the fixed ``<repo>/.jax_cache`` (the path is part of nothing
+volatile: no temporary name, pid or time, so a later process finds it again).
 
 The reference has no counterpart (it keeps one long-lived Python process per
-sweep, synthetic_static_obs/main_mpc.py:106); a TPU-native framework with
-many short CLI entry points needs this to be first-class.
+sweep, synthetic_static_obs/main_mpc.py:106).
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_persistent_cache(path: str | None = None) -> str:
-    """Point JAX's compilation cache at a persistent directory.
+def cache_dir() -> str:
+    """Where the persistent cache lives: ``$JAX_COMPILATION_CACHE_DIR`` if
+    set, else ``<repo>/.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
 
-    Call BEFORE the first jit compilation.  ``MPC_MMD_JAX_CACHE`` overrides
-    the default (<repo>/.jax_cache); set it to ``0`` to disable.
-    Returns the cache directory in use ("" if disabled).
+
+def enable_persistent_cache() -> str:
+    """Point JAX's compilation cache at :func:`cache_dir`.
+
+    Call BEFORE the first jit compilation.  Returns the directory in use, or
+    "" on the CPU backend: XLA:CPU serializes AOT results keyed loosely
+    enough that an entry compiled under one host's CPU feature set can be
+    loaded on another (mismatch warnings, potential SIGILL), and CPU
+    compiles here are seconds anyway.
     """
     import jax
 
-    env = os.environ.get("MPC_MMD_JAX_CACHE")
-    if env == "0":
+    if jax.default_backend() == "cpu":
         return ""
-    # TPU-only: XLA:CPU serializes AOT results keyed loosely enough that an
-    # entry compiled under one host's CPU feature set can be loaded on
-    # another (observed: +prefer-no-scatter mismatch warnings, potential
-    # SIGILL).  CPU compiles here are seconds anyway; the cache exists to
-    # amortize the minutes-long TPU cold compile.
-    try:
-        if jax.default_backend() != "tpu":
-            return ""
-    except Exception:
-        return ""
-    cache_dir = path or env or _DEFAULT_DIR
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
     # Cache every program (defaults skip compiles <1s / small executables —
     # we want the whole pipeline warm, including tiny helper programs).
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    return cache_dir
+    return path

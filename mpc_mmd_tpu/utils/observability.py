@@ -5,7 +5,7 @@ discarded by every caller).
 Here the solver returns its convergence traces (SolveResult.res / res_2 /
 res_beta) and this module gives them somewhere to go: a structured JSONL
 metric stream, wall-clock phase timers, and an optional jax.profiler trace
-wrapper for TPU timeline capture.
+wrapper for device timeline capture.
 """
 
 from __future__ import annotations

@@ -432,18 +432,44 @@ def test_compare_same_mode_stores_with_labels(tmp_path, monkeypatch):
             assert "coll_default" in z and "coll_realtime" in z
 
 
-def test_persistent_cache_tpu_only(monkeypatch, tmp_path):
-    """The persistent XLA cache must stay disabled off-TPU: XLA:CPU AOT
-    entries are keyed loosely enough to load under a mismatched host CPU
-    feature set (SIGILL risk)."""
+@pytest.mark.parametrize("env_set", [True, False])
+def test_persistent_cache_placement(monkeypatch, tmp_path, env_set):
+    """On the GPU the cache lands in $JAX_COMPILATION_CACHE_DIR when it is
+    set and in the fixed <repo>/.jax_cache otherwise."""
+    import os
+
+    import jax
+
     from mpc_mmd_tpu.utils import compilation_cache as cc
 
-    # test env runs on the CPU backend -> disabled regardless of env var
-    monkeypatch.setenv("MPC_MMD_JAX_CACHE", str(tmp_path / "cache"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = str(tmp_path / "cache")
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert cc.cache_dir() == os.path.join(repo, ".jax_cache")
+        # enable below creates the directory: point the default elsewhere
+        monkeypatch.setattr(cc, "DEFAULT_DIR", want)
+    assert cc.cache_dir() == want
+
+    updates = {}
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: updates.__setitem__(k, v))
+    assert cc.enable_persistent_cache() == want
+    assert updates["jax_compilation_cache_dir"] == want
+    assert os.path.isdir(want)
+
+
+def test_persistent_cache_off_on_cpu(monkeypatch, tmp_path):
+    """The CPU backend stays uncached: XLA:CPU AOT entries are keyed loosely
+    enough to load under a mismatched host CPU feature set (SIGILL risk)."""
+    from mpc_mmd_tpu.utils import compilation_cache as cc
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
     assert cc.enable_persistent_cache() == ""
-    # explicit opt-out stays an opt-out
-    monkeypatch.setenv("MPC_MMD_JAX_CACHE", "0")
-    assert cc.enable_persistent_cache() == ""
+    assert not (tmp_path / "cache").exists()
 
 
 def test_sweep_dispatch_pipeline_matches_batch(tmp_path, monkeypatch):

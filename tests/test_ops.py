@@ -1,4 +1,5 @@
-"""Pallas kernels vs their XLA reference implementations (interpret mode)."""
+"""Hot-path ops: the Pallas (Triton route) kernels in interpret mode, the
+plain-XLA forms the CPU runs, and the table that picks between them."""
 
 import dataclasses
 
@@ -7,14 +8,29 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_mmd_tpu import static_workload
-from mpc_mmd_tpu.dynamics import rollout
+from mpc_mmd_tpu import ops, static_workload
+from mpc_mmd_tpu.dynamics import rollout, rollout_scan
 from mpc_mmd_tpu.linalg import eq_qp_solve
-from mpc_mmd_tpu.ops import fused_rollout
-from mpc_mmd_tpu.ops.qp_pallas import eq_qp_solve_pallas
-from mpc_mmd_tpu.ops.topk_kernel_pallas import topk_kernel_matrices
+from mpc_mmd_tpu.ops.qp_triton import eq_qp_solve_triton
+from mpc_mmd_tpu.ops.rollout_triton import rollout_triton
 from mpc_mmd_tpu.reduced_set import (select_reduced_set,
                                      select_reduced_set_batched)
+
+
+def _rollout_pair(acc, steer, state0):
+    """(scan, Triton kernel in interpret mode) rollouts, in float64.
+
+    float64 because the comparison is about the kernel's semantics: in
+    float32 XLA:CPU contracts ``sqrt(.) + a * dt`` into an FMA inside the
+    jitted scan but not inside the interpreted kernel body, and that one
+    rounding difference compounds to ~7 ulp of position over 50 steps.
+    """
+    with jax.enable_x64(True):
+        args = [jnp.asarray(np.asarray(a), jnp.float64)
+                for a in (acc, steer, state0)]
+        ref = rollout_scan(*args, 0.15, 2.5)
+        got = rollout_triton(*args, 0.15, 2.5, interpret=True)
+        return [np.asarray(a) for a in ref + got]
 
 
 @pytest.mark.parametrize("L,T", [(256, 50), (1000, 30), (100, 20)])
@@ -22,10 +38,27 @@ def test_fused_rollout_matches_scan(rng, L, T):
     acc = jnp.asarray(rng.normal(1, 0.5, (L, T)), jnp.float32)
     steer = jnp.asarray(rng.normal(0, 0.1, (L, T)), jnp.float32)
     state0 = jnp.asarray([0.0, 1.75, 5.0, 0.0, 0.0], jnp.float32)
-    x1, y1 = rollout(acc, steer, state0, 0.15, 2.5)
-    x2, y2 = fused_rollout(acc, steer, state0, 0.15, 2.5, interpret=True)
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2), atol=1e-5)
+    x1, y1, x2, y2 = _rollout_pair(acc, steer, state0)
+    np.testing.assert_allclose(x1, x2, atol=1e-5)
+    np.testing.assert_allclose(y1, y2, atol=1e-5)
+    # the dispatching entry point takes the float32 scan on the CPU
+    x3, _ = rollout(acc, steer, state0, 0.15, 2.5)
+    x4, _ = rollout_scan(acc, steer, state0, 0.15, 2.5)
+    np.testing.assert_array_equal(np.asarray(x3), np.asarray(x4))
+
+
+def _kkt_oracle(C, r):
+    """float64 dense KKT solve of the equality-constrained QP."""
+    C = np.asarray(C, np.float64)
+    r = np.asarray(r, np.float64)
+    n = C.shape[-1]
+    kkt = np.zeros(C.shape[:-2] + (n + 1, n + 1))
+    kkt[..., :n, :n] = C
+    kkt[..., :n, n] = 1.0
+    kkt[..., n, :n] = 1.0
+    rhs = np.concatenate((r, np.ones(r.shape[:-1] + (1,))), axis=-1)
+    sol = np.linalg.solve(kkt, rhs[..., None])[..., 0]
+    return sol[..., :n], sol[..., n]
 
 
 @pytest.mark.parametrize("batch,n", [((37,), 4), ((3, 50), 6), ((1,), 11)])
@@ -33,65 +66,34 @@ def test_eq_qp_solve_pallas_matches_linalg(rng, batch, n):
     A = jnp.asarray(rng.normal(0, 1, batch + (n, n)), jnp.float32)
     C = jnp.einsum("...ij,...kj->...ik", A, A) + 2.0 * jnp.eye(n)
     r = jnp.asarray(rng.normal(0, 1, batch + (n,)), jnp.float32)
-    b1, mu1 = eq_qp_solve(C, r)
-    b2, mu2 = eq_qp_solve_pallas(C, r, interpret=True)
-    np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(mu1), np.asarray(mu2),
-                               rtol=1e-4, atol=1e-5)
-    # constraint satisfied exactly-ish
-    np.testing.assert_allclose(np.asarray(jnp.sum(b2, axis=-1)), 1.0,
-                               atol=1e-4)
-
-
-@pytest.mark.parametrize("C,S,M,k", [(2, 100, 9, 3), (1, 130, 25, 5)])
-def test_topk_kernel_matrices_matches_xla(rng, C, S, M, k):
-    samples = jnp.asarray(rng.normal(0, 1, (C, S, M + 1)), jnp.float32)
-    samples = samples.at[:, :, -1].set(jnp.abs(samples[:, :, -1]) + 0.2)
-    D = jnp.abs(jnp.asarray(rng.normal(0, 1, (C, M, M)), jnp.float32))
-    D = D + jnp.swapaxes(D, 1, 2)
-
-    row_sum, K_red, idx = topk_kernel_matrices(samples, D, k, interpret=True)
-
-    # XLA fast-path reference (reduced_set.select_reduced_set inner loop)
-    from mpc_mmd_tpu.reduced_set import _topk_indices
-    idx_ref = jax.vmap(lambda s: _topk_indices(jnp.abs(s[:, :M]), k))(samples)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(idx_ref))
-    onehot = (idx_ref[..., None] == jnp.arange(M)).astype(jnp.float32)
-    rows = jnp.einsum("cskr,crm->cskm", onehot, D)
-    sig = samples[:, :, -1]
-    K_mixed = jnp.exp(-rows / sig[:, :, None, None])
-    np.testing.assert_allclose(np.asarray(row_sum),
-                               np.asarray(jnp.sum(K_mixed, axis=3)),
-                               rtol=1e-5, atol=1e-5)
-    K_red_ref = jnp.einsum("cskm,csjm->cskj", K_mixed, onehot)
-    np.testing.assert_allclose(np.asarray(K_red), np.asarray(K_red_ref),
-                               rtol=1e-5, atol=1e-5)
+    b_ref, mu_ref = _kkt_oracle(C, r)
+    for b, mu in (eq_qp_solve(C, r),
+                  eq_qp_solve_triton(C, r, interpret=True)):
+        np.testing.assert_allclose(np.asarray(b), b_ref, rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(np.asarray(mu), mu_ref, rtol=1e-4,
+                                   atol=1e-5)
+        # constraint satisfied exactly-ish
+        np.testing.assert_allclose(np.asarray(jnp.sum(b, axis=-1)), 1.0,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("shape,k", [((100, 100, 100), 10), ((7, 33), 5),
                                      ((600, 100), 11)])
 def test_topk_pallas_matches_top_k(rng, shape, k):
-    from mpc_mmd_tpu.ops.topk_pallas import topk_indices_pallas
     x = jnp.asarray(rng.normal(0, 1, shape), jnp.float32)
     ref = jax.lax.top_k(x, k)[1]
-    got = topk_indices_pallas(x, k, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
     # ties: first occurrence must win, matching top_k / stable argsort
     xt = jnp.round(x * 2) / 2
-    np.testing.assert_array_equal(
-        np.asarray(jax.lax.top_k(xt, k)[1]),
-        np.asarray(topk_indices_pallas(xt, k, interpret=True)))
+    ref_t = jax.lax.top_k(xt, k)[1]
+    np.testing.assert_array_equal(np.asarray(ref), np.asarray(ops.topk(x, k)))
+    np.testing.assert_array_equal(np.asarray(ref_t),
+                                  np.asarray(ops.topk(xt, k)))
 
 
 def test_topk_nan_lanes_rank_last(rng):
     """NaN entries never win a selection round while finite lanes remain,
-    and every emitted index stays in range (a NaN lane used to make the
-    kernel's ``x >= max`` mask all-false and emit the sentinel M)."""
-    from mpc_mmd_tpu.ops.topk_pallas import (topk_indices_pallas,
-                                             topk_onehot_pallas)
-    from mpc_mmd_tpu.reduced_set import _topk
-
+    and every emitted index stays in range."""
     M, k = 33, 5
     x = np.asarray(rng.normal(0, 1, (9, M)), np.float32)
     x[0, :] = np.nan                      # all-NaN row: indices still valid
@@ -102,54 +104,53 @@ def test_topk_nan_lanes_rank_last(rng):
     finite_ref = jnp.where(jnp.isnan(xj), -jnp.inf, xj)
     ref = np.asarray(jax.lax.top_k(finite_ref, k)[1])
 
-    got_pallas = topk_indices_pallas(xj, k, interpret=True)
-    got_fallback = _topk(xj, k)           # CPU argmax-rounds path
-    got_oh, _ = topk_onehot_pallas(xj, k, interpret=True)
-    for got in (got_pallas, got_fallback, got_oh):
-        got = np.asarray(got)
-        assert got.max() < M and got.min() >= 0
-        # rows with >= k finite lanes match top_k-on-(-inf-masked) exactly
-        np.testing.assert_array_equal(ref[1:], got[1:])
-        # fully-degenerate all-NaN row: value-masking rounds re-emit index 0
-        # (top_k's sort would emit 0..k-1); both are "arbitrary but
-        # in-range", and the consumer (inner CEM) never selects such a
-        # sample (its QP cost is NaN -> +inf)
-        np.testing.assert_array_equal(got[0], np.zeros(k, got.dtype))
+    got = np.asarray(ops.topk(xj, k))
+    assert got.max() < M and got.min() >= 0
+    # rows with >= k finite lanes match top_k-on-(-inf-masked) exactly
+    np.testing.assert_array_equal(ref[1:], got[1:])
+    # fully-degenerate all-NaN row: all lanes tie at -inf, so the first k
+    # indices win; the consumer (inner CEM) never selects such a sample
+    # (its QP cost is NaN -> +inf)
+    np.testing.assert_array_equal(got[0], np.arange(k, dtype=got.dtype))
 
 
 @pytest.mark.parametrize("shape,k", [((40, 50, 64), 10), ((7, 33), 5)])
-def test_topk_onehot_pallas_matches(rng, shape, k):
-    from mpc_mmd_tpu.ops.topk_pallas import topk_onehot_pallas
+def test_topk_absolute_slice_matches_top_k(rng, shape, k):
+    """The in-kernel |x[..., :M]| ranking (absolute + slice_to), as the inner
+    CEM calls it on its (..., M + 1) sample rows."""
     x = jnp.asarray(rng.normal(0, 1, shape), jnp.float32)
-    idx, oh = topk_onehot_pallas(x, k, interpret=True)
-    ref_idx = jax.lax.top_k(x, k)[1]
-    np.testing.assert_array_equal(np.asarray(ref_idx), np.asarray(idx))
-    ref_oh = (np.asarray(idx)[..., None]
-              == np.arange(shape[-1])).astype(np.float32)
-    np.testing.assert_array_equal(ref_oh, np.asarray(oh))
-    # absolute + slice_to variant (the in-kernel |samples[..., :M]| path)
     M = shape[-1] - 1
-    idx2, oh2 = topk_onehot_pallas(x, k, interpret=True, absolute=True,
-                                   slice_to=M)
-    ref2 = jax.lax.top_k(jnp.abs(x[..., :M]), k)[1]
-    np.testing.assert_array_equal(np.asarray(ref2), np.asarray(idx2))
-    assert oh2.shape == shape[:-1] + (k, M)
+    ref = np.asarray(jax.lax.top_k(jnp.abs(x[..., :M]), k)[1])
+    got = np.asarray(ops.topk(x, k, absolute=True, slice_to=M))
+    assert got.shape == shape[:-1] + (k,)
+    np.testing.assert_array_equal(ref, got)
 
 
-def test_use_fused_inner_cem_env_override(monkeypatch):
-    from mpc_mmd_tpu.reduced_set import use_fused_inner_cem
+def test_fused_selection_is_rejected(rng):
+    """The fused selection kernel is gone; asking for it is an error."""
     cfg = static_workload(num_reduced=3, num_obs=2, num_prime=15,
                           mode="mmd_opt")
-    # off by default (the fused kernel measured slower on v5e-lite)
-    monkeypatch.delenv("MPC_MMD_FUSED_CEM", raising=False)
-    assert use_fused_inner_cem(cfg) is False
-    monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
-    assert use_fused_inner_cem(cfg) is True
-    # exact mode must never take the fused path (parity tests rely on it)
-    exact = cfg.replace(solve_strategy="exact")
-    assert use_fused_inner_cem(exact) is False
-    monkeypatch.setenv("MPC_MMD_FUSED_CEM", "0")
-    assert use_fused_inner_cem(cfg) is False
+    M = cfg.risk.num_mother
+    cx = jnp.asarray(rng.normal(0, 1, (2, M, 11)), jnp.float32)
+    xr = jnp.asarray(rng.normal(0, 1, (2, M, 20)), jnp.float32)
+    with pytest.raises(ValueError, match="unknown selection 'fused'"):
+        select_reduced_set_batched(cfg, cx, cx, xr, xr, selection="fused")
+
+
+@pytest.mark.parametrize("platform,expected", [
+    ("cpu", {"qp": "xla", "rollout": "xla"}),
+    ("gpu", {"qp": "triton", "rollout": "triton"}),
+    ("rocm", None),
+])
+def test_kernel_choice_per_platform(monkeypatch, platform, expected):
+    """One table picks every op's implementation from the backend; an
+    unknown platform raises instead of falling back."""
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    if expected is None:
+        with pytest.raises(ValueError, match="no kernel table"):
+            ops.kernel_for("qp")
+        return
+    assert {op: ops.kernel_for(op) for op in expected} == expected
 
 
 def test_batched_inner_cem_matches_vmap(rng):
@@ -166,7 +167,7 @@ def test_batched_inner_cem_matches_vmap(rng):
 
     ref = jax.vmap(lambda a, b, c, d: select_reduced_set(cfg, a, b, c, d))(
         cx, cy, xr, yr)
-    got = select_reduced_set_batched(cfg, cx, cy, xr, yr, interpret=True)
+    got = select_reduced_set_batched(cfg, cx, cy, xr, yr)
 
     np.testing.assert_allclose(np.asarray(ref.res), np.asarray(got.res),
                                rtol=1e-4, atol=1e-5)
@@ -183,10 +184,9 @@ def test_fused_rollout_per_lane_init_states(rng):
     acc = jnp.asarray(rng.normal(1, 0.5, (L, T)), jnp.float32)
     steer = jnp.asarray(rng.normal(0, 0.1, (L, T)), jnp.float32)
     state0 = jnp.asarray(rng.normal(0, 1, (L, 5)), jnp.float32)
-    x1, y1 = rollout(acc, steer, state0, 0.15, 2.5)
-    x2, y2 = fused_rollout(acc, steer, state0, 0.15, 2.5, interpret=True)
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2), atol=1e-5)
+    x1, y1, x2, y2 = _rollout_pair(acc, steer, state0)
+    np.testing.assert_allclose(x1, x2, atol=1e-5)
+    np.testing.assert_allclose(y1, y2, atol=1e-5)
 
 
 def test_g_selection_matches_xla_selection(rng):
@@ -288,30 +288,6 @@ def test_xt_selection_matches_xla_selection(rng, monkeypatch, maxiter, carry):
     np.testing.assert_array_equal(np.asarray(ref.y_red), np.asarray(got.y_red))
 
 
-def test_xt_selection_interpret_qp_kernel(rng):
-    """"xt" through the Pallas transposed-QP entry (interpret mode) matches
-    the plain-CPU fallback path."""
-    cfg = static_workload(num_reduced=3, num_obs=2, num_prime=15,
-                          mode="mmd_opt")
-    cfg = cfg.replace(
-        beta_cem=dataclasses.replace(cfg.beta_cem, maxiter=2))
-    M = cfg.risk.num_mother
-    Cn, nvar, T = 2, 11, 20
-    cx = jnp.asarray(rng.normal(0, 1, (Cn, M, nvar)), jnp.float32)
-    cy = jnp.asarray(rng.normal(0, 1, (Cn, M, nvar)), jnp.float32)
-    xr = jnp.asarray(rng.normal(0, 1, (Cn, M, T)), jnp.float32)
-    yr = jnp.asarray(rng.normal(0, 1, (Cn, M, T)), jnp.float32)
-
-    ref = select_reduced_set_batched(cfg, cx, cy, xr, yr, selection="xt")
-    got = select_reduced_set_batched(cfg, cx, cy, xr, yr, selection="xt",
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(ref.res), np.asarray(got.res),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ref.beta), np.asarray(got.beta),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(ref.x_red), np.asarray(got.x_red))
-
-
 @pytest.mark.parametrize("kind", ["gaussian", "matern52"])
 def test_batched_inner_cem_kernel_variants(rng, kind):
     """The selectable kernels (RiskConfig.kernel) run the same math in the
@@ -330,7 +306,7 @@ def test_batched_inner_cem_kernel_variants(rng, kind):
 
     ref = jax.vmap(lambda a, b, c, d: select_reduced_set(cfg, a, b, c, d))(
         cx, cy, xr, yr)
-    got = select_reduced_set_batched(cfg, cx, cy, xr, yr, interpret=True)
+    got = select_reduced_set_batched(cfg, cx, cy, xr, yr)
 
     np.testing.assert_allclose(np.asarray(ref.res), np.asarray(got.res),
                                rtol=1e-4, atol=1e-5)
@@ -367,3 +343,11 @@ def test_solver_kernel_variants_end_to_end(rng, kind):
                 xt, yt, 15.0)
     assert np.all(np.isfinite(np.asarray(r.cx)))
     assert np.isfinite(float(r.risk_obs))
+
+
+@pytest.mark.gpu
+def test_kernels_at_production_width_on_gpu(gpu_device):
+    """The compiled Triton kernels (no interpret mode) against their plain
+    references at production width — chip_smoke.py's kernels phase."""
+    import chip_smoke
+    chip_smoke.phase_kernels(jax.devices("cpu")[0])

@@ -269,7 +269,7 @@ def test_fastrt_workload_preset():
 
 def test_matmul_precision_knob():
     """cfg.matmul_precision="highest" pins f32 contractions at trace time
-    (on TPU "default" runs them as single-pass bf16 — see ProblemConfig).
+    (on the GPU "default" runs them in TF32 — see ProblemConfig).
     On CPU both trace to the same f32 program, so results match exactly."""
     s1 = Solver(tiny_cfg("cvar"))
     xt, yt = scenario(s1.ws)
